@@ -11,8 +11,8 @@ Walks through the production deployment pattern on one host:
 
 On CPU, launch with
   XLA_FLAGS=--xla_force_host_platform_device_count=8 python examples/distributed_demo.py
-to emulate an 8-device mesh; on a real TPU slice it uses the chips as-is.
-Multi-host slices additionally call parallel.multihost.initialize() first
+to emulate an 8-device mesh; on a multi-GPU host it uses the cards as-is.
+Multi-host runs additionally call parallel.multihost.initialize() first
 (see that module's docstring).
 """
 

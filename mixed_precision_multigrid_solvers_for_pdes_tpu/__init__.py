@@ -1,8 +1,9 @@
-"""TPU-native mixed-precision geometric multigrid solvers for PDEs.
+"""Mixed-precision geometric multigrid solvers for PDEs, in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
+A JAX/XLA framework with the capabilities of the reference
 ``Mixed_Precision_Multigrid_Solvers_for_PDEs`` project (CPU/CUDA, see
-reference src/multigrid/__init__.py), re-designed TPU-first:
+reference src/multigrid/__init__.py), re-designed as whole-solve jitted
+programs for an accelerator (NVIDIA H100):
 
 - One functional multigrid driver (V/W/F-cycles, FMG) jitted end-to-end,
   replacing the reference's five parallel driver implementations
@@ -10,9 +11,9 @@ reference src/multigrid/__init__.py), re-designed TPU-first:
   advanced_multigrid.py:36, gpu/gpu_solver.py:24,504).
 - A single parameterized stencil operator ``-div(a grad u) + lam*u`` covering
   Poisson, Helmholtz, variable coefficients and implicit heat steps.
-- Pallas TPU kernels for the hot ops (multi-sweep smoothing in VMEM, fused
-  residual+restriction, fused prolongation+correction), replacing the
-  reference's CUDA-C string kernels (reference gpu/cuda_kernels.py).
+- Smoothing, residuals and transfers as whole-array XLA operations that
+  the compiler fuses, replacing the reference's CUDA-C string kernels
+  (reference gpu/cuda_kernels.py).
 - Mixed precision as dtype-static stages + iterative refinement (bf16/fp32
   cycles, fp64 residual accumulation), replacing PrecisionManager /
   GPUPrecisionManager (reference core/precision.py:18, gpu/gpu_precision.py:28).
@@ -20,8 +21,8 @@ reference src/multigrid/__init__.py), re-designed TPU-first:
   replacing the reference's CuPy thread-driven multi-GPU code
   (reference gpu/multi_gpu_solver.py:67).
 
-float64 is enabled globally (TPU emulates it; explicit fp32/bf16 arrays are
-unaffected) because high-accuracy residual norms and coarse-grid math need it.
+float64 is enabled globally (explicit fp32/bf16 arrays are unaffected)
+because high-accuracy residual norms and coarse-grid math need it.
 """
 
 import jax as _jax

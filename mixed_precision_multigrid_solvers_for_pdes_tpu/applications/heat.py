@@ -1,6 +1,6 @@
 """Heat-equation time stepping: u_t = div(a grad u)*alpha + q.
 
-TPU-native re-design of the reference's two heat solvers
+Re-design of the reference's two heat solvers
 (reference applications/heat_solver.py:34-792 and heat_equation.py:57-644):
 
 - Every implicit step is a **shifted-operator multigrid solve**

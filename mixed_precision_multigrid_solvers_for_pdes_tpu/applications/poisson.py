@@ -2,7 +2,7 @@
 
 Counterpart of the reference's ``PoissonSolver2D`` facade
 (reference applications/poisson_solver.py:35-460): solve a Problem with one
-call, pick precision/backend, measure errors, and run grid-convergence
+call, pick precision, measure errors, and run grid-convergence
 studies with observed-order fits.
 """
 
@@ -106,7 +106,8 @@ def solve_poisson(
         f64, u64 = _shard(problem.rhs(jnp.float64),
                           problem.initial_guess(jnp.float64))
         u, info = refinement.ir_solve(
-            levels, f64, u64, cfg, inner_cycles=2, constrain=constrain,
+            levels, f64, u64, cfg, inner_cycles=2, use_fmg=use_fmg,
+            constrain=constrain,
         )
     else:
         dt = pol.mode.dtype

@@ -33,7 +33,6 @@ class BenchmarkRecord:
     name: str
     n: int
     precision: str
-    backend: str
     wall_s: float
     std_s: float
     iterations: int
@@ -77,8 +76,7 @@ class BenchmarkSuite:
         self.records: List[BenchmarkRecord] = []
 
     def run_one(self, n: int, precision: str, *, runs: int = 5,
-                warmup: int = 1, backend: Optional[str] = None
-                ) -> BenchmarkRecord:
+                warmup: int = 1) -> BenchmarkRecord:
         """Time the SOLVE only: the hierarchy, RHS, and initial guess are
         built once outside the timed region, and error norms are computed
         after timing. (Round-1 timed the whole solve_poisson frontend, which
@@ -86,7 +84,7 @@ class BenchmarkSuite:
         device round-trips that understated throughput ~10x; VERDICT.md
         weak #1.)"""
         prob = self.problem_factory(n)
-        cfg = self.cfg if backend is None else self.cfg.replace(backend=backend)
+        cfg = self.cfg
         if precision == "mixed":
             pol = make_policy("mixed")
             levels = mg_mod.build_hierarchy(
@@ -127,7 +125,7 @@ class BenchmarkSuite:
         dofs = (n - 2) ** 2
         errors = prob.error_norms(u) if prob.exact is not None else None
         rec = BenchmarkRecord(
-            name=prob.name, n=n, precision=precision, backend=cfg.backend,
+            name=prob.name, n=n, precision=precision,
             wall_s=stats["min_s"], std_s=stats["std_s"],
             iterations=info["iterations"], converged=info["converged"],
             convergence_factor=info.get("convergence_factor", float("nan")),
@@ -140,25 +138,17 @@ class BenchmarkSuite:
 
     def run(self, sizes: Sequence[int] = (129, 257, 513, 1025),
             precisions: Sequence[str] = ("fp32", "fp64", "mixed"),
-            *, runs: int = 5,
-            backends: Sequence[Optional[str]] = (None,)
-            ) -> List[BenchmarkRecord]:
-        """``backends``: list of cfg.backend overrides per (size, precision)
-        cell — e.g. ("auto", "xla") produces the solve-level backend A/B the
-        reference's gpu_benchmark ran between its cpu and gpu solver stacks
-        (reference gpu/gpu_benchmark.py:89-162)."""
+            *, runs: int = 5) -> List[BenchmarkRecord]:
         for n in sizes:
             for p in precisions:
-                for b in backends:
-                    self.run_one(n, p, runs=runs, backend=b)
+                self.run_one(n, p, runs=runs)
         return self.records
 
     # ---- analyses (reference gpu_benchmark.py:277-500) ----------------------
 
     def precision_speedups(self) -> Dict[int, Dict[str, float]]:
         """Speedup of each precision vs fp64 at the same size
-        (the reference's 1.7x mixed-precision headline, README.md:34).
-        Uses each size's fastest backend per precision."""
+        (the reference's 1.7x mixed-precision headline, README.md:34)."""
         out: Dict[int, Dict[str, float]] = {}
         by_n: Dict[int, Dict[str, float]] = {}
         for r in self.records:
@@ -167,20 +157,6 @@ class BenchmarkSuite:
         for n, d in by_n.items():
             if "fp64" in d:
                 out[n] = {p: d["fp64"] / t for p, t in d.items() if p != "fp64"}
-        return out
-
-    def backend_speedups(self) -> Dict[str, float]:
-        """Pallas-layer end-to-end win: t_xla / t_auto per (size, precision)
-        where both backends were run (VERDICT r2 missing #4 — the kernel
-        layer's win recorded at solve level, not only in microbenches)."""
-        by_cell: Dict[tuple, Dict[str, float]] = {}
-        for r in self.records:
-            by_cell.setdefault((r.n, r.precision), {})[r.backend] = r.wall_s
-        out: Dict[str, float] = {}
-        for (n, p), d in sorted(by_cell.items()):
-            fast = [v for k, v in d.items() if k != "xla"]
-            if "xla" in d and fast:
-                out[f"{n}/{p}"] = d["xla"] / min(fast)
         return out
 
     def scaling_exponent(self, precision: str = "fp32") -> float:
@@ -198,7 +174,6 @@ class BenchmarkSuite:
             "config": dataclasses.asdict(self.cfg),
             "records": [r.to_dict() for r in self.records],
             "precision_speedups": self.precision_speedups(),
-            "backend_speedups": self.backend_speedups(),
             "scaling_exponents": {
                 p: self.scaling_exponent(p)
                 for p in {r.precision for r in self.records}
@@ -211,13 +186,13 @@ class BenchmarkSuite:
             "",
             f"system: `{system_info()}`",
             "",
-            "| problem | n | precision | backend | time (s) | iters | rho (kind) | MDoF/s | l2 error |",
-            "|---|---|---|---|---|---|---|---|---|",
+            "| problem | n | precision | time (s) | iters | rho (kind) | MDoF/s | l2 error |",
+            "|---|---|---|---|---|---|---|---|",
         ]
         for r in self.records:
             err = f"{r.error_l2:.2e}" if r.error_l2 is not None else "-"
             lines.append(
-                f"| {r.name} | {r.n} | {r.precision} | {r.backend} | "
+                f"| {r.name} | {r.n} | {r.precision} | "
                 f"{r.wall_s:.4f} | "
                 f"{r.iterations} | {r.convergence_factor:.3f} ({r.rho_kind}) | "
                 f"{r.dof_per_s / 1e6:.2f} | {err} |"

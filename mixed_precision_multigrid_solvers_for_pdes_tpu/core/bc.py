@@ -253,7 +253,7 @@ def periodic_sync(nx: int, ny: int, pshape: Tuple[int, int],
     node 0; the LAST padded line (index p-1) carries node n-2 so that a plain
     ``jnp.roll(+1)`` delivers the correct west/south wrap neighbor at index 0
     (and roll(-1) at n-2 reads the duplicate at n-1). Two writes per axis —
-    the TPU analogue of the reference's periodic wrap copies
+    the counterpart of the reference's periodic wrap copies
     (reference boundary_conditions/advanced_bc.py:182-217)."""
     px, py = pshape
     wrap_x = spec.west.kind == BCKind.PERIODIC

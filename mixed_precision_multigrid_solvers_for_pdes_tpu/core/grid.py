@@ -1,12 +1,13 @@
 """Static grid metadata for vertex-centered 2D grids.
 
-TPU-first counterpart of the reference's ``Grid`` (reference core/grid.py:10).
+Counterpart of the reference's ``Grid`` (reference core/grid.py:10).
 The reference Grid owns a mutable numpy array; here the grid is *pure static
 metadata* (shape, spacing, domain) — field arrays are separate jax values so
-everything stays functional and jittable. Arrays are stored **padded** to TPU
-tile multiples (sublane 16 x lane 128, valid for fp32 and bf16) with the
-logical (nx, ny) region at the origin; padding cells are kept at zero and
-masked out of every operator.
+everything stays functional and jittable. Arrays are stored **padded** to
+multiples of (16, 128) with the logical (nx, ny) region at the origin;
+padding cells are kept at zero and masked out of every operator. The
+padding gives every level an even shape (the parity-plane transfers need
+it) and at least one spare line per axis (the periodic wrap ghost).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ def _round_up(x: int, m: int) -> int:
 
 
 def padded_shape(nx: int, ny: int) -> Tuple[int, int]:
-    """Storage shape for a logical (nx, ny) grid, aligned to TPU tiles."""
+    """Storage shape for a logical (nx, ny) grid, (16, 128)-aligned."""
     return (_round_up(nx, SUBLANE), _round_up(ny, LANE))
 
 

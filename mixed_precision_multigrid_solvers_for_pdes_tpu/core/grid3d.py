@@ -3,8 +3,8 @@
 The reference's 3D solvers are stubs (reference
 applications/poisson_solver.py:483-557 and heat_solver.py:752-792 raise
 NotImplementedError); this build implements 3D for real. Arrays are stored
-padded on the *last two* axes (TPU tiles cover the trailing (sublane, lane)
-dims; the leading x-axis needs no padding), logical region at the origin.
+padded to multiples of 16 and 128 on the *last two* axes and to an even
+size on x, logical region at the origin.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
-"""Mixed-precision policy, TPU-first.
+"""Mixed-precision policy.
 
 Functional counterpart of the reference's ``PrecisionManager``
 (reference core/precision.py:18) and ``GPUPrecisionManager``
 (reference gpu/gpu_precision.py:28). Key translation:
 
-- CUDA fp16 tensor-core tiers -> TPU bf16 (VPU/MXU native).
-- fp64 -> XLA-emulated float64, used sparingly (norms, final refinement).
+- CUDA fp16 tensor-core tiers -> bf16 storage.
+- fp64 -> float64, used sparingly (norms, final refinement).
 - The reference flips dtypes *inside* the iteration loop; under jit dtypes are
   static, so adaptive precision here is a **host-driven stage loop**: each
   stage runs a jitted solve segment at fixed per-level dtypes, and promotion

@@ -1,2 +1,2 @@
-from . import dispatch, norms, smooth, stencil, stencil3d, transfer, transfer3d  # noqa: F401
+from . import norms, smooth, stencil, stencil3d, transfer, transfer3d  # noqa: F401
 from .stencil import Stencil, make_stencil  # noqa: F401

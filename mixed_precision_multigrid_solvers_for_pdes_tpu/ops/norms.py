@@ -1,7 +1,7 @@
 """Grid norms with high-precision accumulation.
 
 Matches reference core/grid.py:174 (scaled L2: sqrt(hx*hy*sum(f^2))) and the
-max norm, but always accumulates in float64 (XLA-emulated on TPU) — the
+max norm, but always accumulates in float64 — the
 algorithmic replacement for the reference's fp32-state/fp64-accumulate CUDA
 residual kernel (reference cuda_kernels.py:843-883). Inputs are padded arrays
 whose padding/fixed cells are zero, so whole-array reductions are exact.

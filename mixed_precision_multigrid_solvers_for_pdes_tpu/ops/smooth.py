@@ -1,6 +1,6 @@
-"""Smoothers (XLA reference path; Pallas fast path in ops/pallas_kernels).
+"""Smoothers as whole-array XLA operations.
 
-TPU-native re-design of the reference smoother zoo
+Re-design of the reference smoother zoo
 (reference solvers/smoothers.py:16-285, iterative.py:72-362,
 gpu/cuda_kernels.py:87-275):
 

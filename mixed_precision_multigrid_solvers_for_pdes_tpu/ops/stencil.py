@@ -19,8 +19,8 @@ Coefficients are 0-d scalars on the constant-coefficient all-Dirichlet fast
 path and padded 2-d arrays otherwise (variable a, or Neumann/Robin sides with
 ghost-point elimination).
 
-Neighbor access uses ``jnp.roll`` — on TPU a cheap lane/sublane shift that XLA
-fuses; wrapped values only reach fixed or padding nodes (masked) or are
+Neighbor access uses ``jnp.roll``, which XLA fuses into the consumer;
+wrapped values only reach fixed or padding nodes (masked) or are
 multiplied by zero edge coefficients, so no padding copies are ever needed.
 The output of ``apply`` is only meaningful on unknown-mask nodes.
 """

@@ -1,11 +1,11 @@
-"""Intergrid transfers: restriction and prolongation (XLA reference path).
+"""Intergrid transfers: restriction and prolongation.
 
 Replaces the reference's Python-loop ``RestrictionOperator`` /
 ``ProlongationOperator`` (reference operators/transfer.py:15,151) and the CUDA
 restriction/prolongation kernels (reference cuda_kernels.py:451-541) with
-parity-plane / interleave-reshape formulations that XLA maps onto the VPU at
-full precision (see _restrict_interior_parity for the measured alternatives —
-stride-2 slicing and TPU convs both lose).
+whole-array parity-plane (restriction) and repeat + parity-select
+(prolongation) formulations: elementwise arithmetic and reshapes that XLA
+fuses, at the working precision, with no matrix products.
 
 Grids are padded; slicing operates on the logical region, and padding cells of
 outputs stay zero by construction. Coarse (ncx, ncy) relates to fine as
@@ -14,31 +14,14 @@ nf = 2*(nc-1)+1.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 
-def _fine_window(rf, ncx, ncy, d0, d1):
-    """fine[2i+d0, 2j+d1] for coarse interior i=1..ncx-2, j=1..ncy-2."""
-    return rf[2 + d0 : 2 * (ncx - 2) + d0 + 1 : 2,
-              2 + d1 : 2 * (ncy - 2) + d1 + 1 : 2]
-
-
-def _restrict_interior_parity(rf, ncx, ncy, dtype, *, full: bool):
-    """Interior of the 9/5-point restriction via parity-plane decomposition.
-
-    Performance history (measured v5e, fp32, 1025^2 -> 513^2, k=64 chained
-    with dispatch overhead subtracted):
-    - 9-window stride-2 slicing: ~23 ms (lane-dim strided gathers).
-    - stride-2 VALID conv: ~2 ms BUT XLA TPU convs run at bf16-ish default
-      precision (observed 2e-3 relative error); with Precision.HIGHEST the
-      conv costs ~4 ms.
-    - this formulation: ~2.4 ms at FULL f32 precision — reshape the padded
-      array into four parity planes (even/odd x even/odd), then the nine
-      windows become contiguous unit rolls of whole planes (VPU-friendly).
+def _restrict_interior_parity(rf, dtype, *, full: bool):
+    """Interior of the 9/5-point restriction via parity-plane decomposition:
+    reshape the padded array into four parity planes (even/odd x even/odd),
+    so the nine windows become unit rolls of whole planes.
 
     Coarse node (i, j) sits at fine (2i, 2j) = ee[i, j]; odd-index neighbors
     live on the oe/eo/oo planes at offsets {0, -1}.
@@ -67,136 +50,10 @@ def _restrict_interior_parity(rf, ncx, ncy, dtype, *, full: bool):
     return c
 
 
-@lru_cache(maxsize=None)
-def _decim_matrix(nfine_p: int, ncoarse_p: int):
-    """0/1 lane-decimation matrix D with D[2j, j] = 1 (host-built constant).
-
-    Lane-dimension decimation through the MXU: every XLA alternative
-    (stride-2 conv, stride-2 slice, lane-dim reshape) triggers a
-    catastrophic relayout when the result must be MATERIALIZED — measured
-    ~700 us for a 1025^2 -> 513^2 restrict inside a V-cycle vs ~50 us for
-    the matmul form (scripts/transfer_microbench.py, scripts/cycle_deltas.py).
-    Kept in fp32: the entries are exact in bf16, so Precision.HIGHEST gives
-    bit-exact selection of fp32 operands.
-    """
-    D = np.zeros((nfine_p, ncoarse_p), np.float32)
-    j = np.arange(ncoarse_p)
-    keep = 2 * j < nfine_p
-    D[2 * j[keep], j[keep]] = 1.0
-    return D  # numpy: caching a jnp array made inside a trace leaks tracers
-
-
-_CHUNK = 256  # fine-lane chunk for block-local decimation/interleave
-
-
-def _chunked_decim(W2, dtype):
-    """Lane decimation via the MXU, chunk-locally: the selection matrix only
-    connects fine lane 2j to coarse lane j WITHIN a 256-lane chunk (chunk c
-    covers fine [256c, 256c+256) -> coarse [128c, 128c+128)), so a batched
-    (256 x 128) matmul does the same data movement with ~py/256x fewer FLOPs
-    than the full (py x py/2) matmul — measured 165 -> ~35 us at 2049^2."""
-    px2, py = W2.shape
-    if py % _CHUNK:
-        D = jnp.asarray(_decim_matrix(py, py // 2), dtype)
-        return jnp.dot(W2, D, precision=jax.lax.Precision.HIGHEST)
-    D = jnp.asarray(_decim_matrix(_CHUNK, _CHUNK // 2), dtype)
-    v = W2.reshape(px2, py // _CHUNK, _CHUNK)
-    c = jnp.einsum("xcy,yz->xcz", v, D,
-                   precision=jax.lax.Precision.HIGHEST)
-    return c.reshape(px2, py // 2)
-
-
-def _chunked_zero_interleave_y(c, dtype):
-    """(.., pyc) -> (.., 2*pyc) with values at even lanes, zeros at odd —
-    the transpose of decimation, as chunk-local MXU matmuls (exact)."""
-    px, pyc = c.shape
-    HC = _CHUNK // 2
-    if pyc % HC:
-        T = jnp.asarray(_decim_matrix(2 * pyc, pyc).T, dtype)
-        return jnp.dot(c, T, precision=jax.lax.Precision.HIGHEST)
-    T = jnp.asarray(_decim_matrix(_CHUNK, HC).T, dtype)  # (128, 256)
-    v = c.reshape(px, pyc // HC, HC)
-    out = jnp.einsum("xcy,yz->xcz", v, T,
-                     precision=jax.lax.Precision.HIGHEST)
-    return out.reshape(px, 2 * pyc)
-
-
-def _prolong_matmul(ec, ncx, ncy, nfx, nfy, pshape_fine, dtype):
-    """Bilinear prolongation = zero-interleave + separable [1/2 1 1/2] conv.
-
-    - x interleave: a legal sublane stack+reshape (free);
-    - y interleave: chunk-local transpose-decimation matmuls on the MXU
-      (exact; the only lane-dim data movement);
-    - the bilinear weights then come from fused unit rolls (BW-bound).
-
-    Matches the repeat+parity-select formulation to fp32 rounding; measured
-    ~87 -> ~30 us at 513 -> 1025 and ~511 -> ~100 us at 1025 -> 2049 vs the
-    dense Ex^T @ ec @ Ey matmuls (O(N^1.5) FLOPs) they replace.
-    """
-    pxc, pyc = ec.shape
-    pxf, pyf = pshape_fine
-    c = ec.astype(dtype)
-    # x zero-interleave (sublane): rows 2i <- c_i, odd rows 0
-    zx = jnp.stack([c, jnp.zeros_like(c)], axis=1).reshape(2 * pxc, pyc)
-    # y zero-interleave (lane, via MXU)
-    fz = _chunked_zero_interleave_y(zx, dtype)           # (2pxc, 2pyc)
-    half = jnp.asarray(0.5, dtype)
-    w = fz + half * (jnp.roll(fz, 1, 0) + jnp.roll(fz, -1, 0))
-    w = w + half * (jnp.roll(w, 1, 1) + jnp.roll(w, -1, 1))
-    # pxf <= 2*pxc and pyf <= 2*pyc always (tile rounding); crop then apply
-    # the nf cutoff (padding must stay clean; also kills roll wraparound)
-    w = w[:pxf, :pyf]
-    i = jax.lax.broadcasted_iota(jnp.int32, (pxf, pyf), 0)
-    j = jax.lax.broadcasted_iota(jnp.int32, (pxf, pyf), 1)
-    return jnp.where((i < nfx) & (j < nfy), w, jnp.zeros((), dtype))
-
-
 def _decimate_ee(rf, dtype):
-    """Even-even plane ee[i, j] = rf[2i, 2j] without a lane-dim reshape.
-
-    The 4-way parity reshape materializes a lane-interleave relayout —
-    measured ~1.6 ms for the FMG inject-restrict chain at 1025^2 (round 3,
-    scripts/fmg_profile.py). This formulation uses the legal sublane
-    split-reshape for rows + the chunked MXU selection matmul for lanes
-    (exact at Precision.HIGHEST), same as _restrict_interior_fine: the
-    whole chain drops to ~80 us. Non-TPU / f64 keeps the reshape."""
+    """Even-even plane ee[i, j] = rf[2i, 2j]."""
     px, py = rf.shape
-    if (jax.default_backend() == "tpu"
-            and jnp.dtype(dtype) in (jnp.dtype(jnp.float32),
-                                     jnp.dtype(jnp.bfloat16))):
-        w2 = rf.astype(dtype).reshape(px // 2, 2, py)[:, 0, :]
-        return _chunked_decim(w2, dtype)
     return rf.astype(dtype).reshape(px // 2, 2, py // 2, 2)[:, 0, :, 0]
-
-
-def _restrict_interior_fine(rf, dtype, *, full: bool):
-    """Restriction as a fused fine-resolution weighted sum + sublane-reshape
-    x-decimation + MXU-matmul y-decimation — the fastest exact formulation
-    measured on v5e (~50 us materialized at 1025^2 -> 513^2 fp32, vs ~700 us
-    for the round-1 stride-2 HIGHEST conv and ~2 ms for the parity reshape).
-
-    The 9/5-point sum is pure fused rolls on the fine array (BW-bound). The
-    x (sublane) decimation is a legal sublane split-reshape; the y (lane)
-    decimation is a matmul against a 0/1 selection matrix at
-    Precision.HIGHEST, which is exact for fp32 operands. fp64 takes the
-    parity path (no f64 MXU on TPU).
-    """
-    rf = rf.astype(dtype)
-
-    def up(a, ax):
-        return jnp.roll(a, 1, ax)
-
-    def dn(a, ax):
-        return jnp.roll(a, -1, ax)
-
-    if full:  # separable [1 2 1] x [1 2 1] / 16
-        row = 2.0 * rf + up(rf, 0) + dn(rf, 0)
-        w = (2.0 * row + up(row, 1) + dn(row, 1)) / 16.0
-    else:  # [0 1 0; 1 4 1; 0 1 0] / 8
-        w = (4.0 * rf + up(rf, 0) + dn(rf, 0) + up(rf, 1) + dn(rf, 1)) / 8.0
-    pxf, pyf = w.shape
-    w2 = w.reshape(pxf // 2, 2, pyf)[:, 0, :]          # sublane decimation
-    return _chunked_decim(w2, dtype)
 
 
 def restrict(
@@ -279,13 +136,8 @@ def restrict(
         # (a plain [1:nc-1] window silently dropped the wrapped seam node 0).
         c = _decimate_ee(rf, dtype)
     elif method in ("half_weighting", "full_weighting"):
-        full = method == "full_weighting"
-        if (jax.default_backend() == "tpu"
-                and jnp.dtype(dtype) in (jnp.dtype(jnp.float32),
-                                         jnp.dtype(jnp.bfloat16))):
-            c = _restrict_interior_fine(rf, dtype, full=full)
-        else:
-            c = _restrict_interior_parity(rf, ncx, ncy, dtype, full=full)
+        c = _restrict_interior_parity(rf, dtype,
+                                      full=method == "full_weighting")
     else:
         raise ValueError(f"unknown restriction {method!r}")
     cpad = place(c)
@@ -331,22 +183,26 @@ def prolong(
         return out.at[0:nfx:2, 0:nfy:2].set(c)
     if method != "bilinear":
         raise ValueError(f"unknown prolongation {method!r}")
-    if (jax.default_backend() == "tpu"
-            and jnp.dtype(dtype) in (jnp.dtype(jnp.float32),
-                                     jnp.dtype(jnp.bfloat16))):
-        return _prolong_matmul(ec, ncx, ncy, nfx, nfy, pshape_fine, dtype)
     # Repeat+parity-select formulation: nearest-repeat each of the four
-    # averaged fields to fine resolution, then pick by fine-index parity.
-    # Measured 5x faster than the earlier interleave-reshape on v5e (0.16 ms
-    # vs 0.75 ms at 513->1025 fp32: jnp.repeat lowers to a broadcast, the
-    # stack+reshape interleave forced a tiled-layout shuffle); arithmetic is
-    # identical. Rolls read one cell past (ncx, ncy), which is padding or the
-    # synced periodic duplicate — those fine nodes are >= nf and sliced away.
+    # averaged fields to fine resolution, then pick by fine-index parity
+    # (jnp.repeat lowers to a broadcast). Rolls read one cell past
+    # (ncx, ncy), which is padding or the synced periodic duplicate — those
+    # fine nodes are >= nf and sliced away.
+    rt = jnp.roll(ec, -1, 1)[:ncx, :ncy]                    # c[i, j+1]
+    dn = jnp.roll(ec, -1, 0)[:ncx, :ncy]                    # c[i+1, j]
+    drt = jnp.roll(jnp.roll(ec, -1, 0), -1, 1)[:ncx, :ncy]
+    fine = bilinear_interleave(c, rt, dn, drt, dtype)
+    out = jnp.zeros(pshape_fine, dtype)
+    return out.at[:nfx, :nfy].set(fine[:nfx, :nfy])
+
+
+def bilinear_interleave(c, rt, dn, drt, dtype):
+    """Fine (2m, 2k) bilinear values from a coarse (m, k) array ``c`` and its
+    +1 neighbours rt = c[i, j+1], dn = c[i+1, j], drt = c[i+1, j+1]: fine
+    (2i, 2j) copies c, odd rows/cols average 2 parents, odd-odd averages 4."""
+    c, rt, dn, drt = (a.astype(dtype) for a in (c, rt, dn, drt))
     half = jnp.asarray(0.5, dtype)
     quarter = jnp.asarray(0.25, dtype)
-    rt = jnp.roll(ec, -1, 1)[:ncx, :ncy].astype(dtype)     # c[i, j+1]
-    dn = jnp.roll(ec, -1, 0)[:ncx, :ncy].astype(dtype)     # c[i+1, j]
-    drt = jnp.roll(jnp.roll(ec, -1, 0), -1, 1)[:ncx, :ncy].astype(dtype)
 
     def rep2(a):
         return jnp.repeat(jnp.repeat(a, 2, 0), 2, 1)
@@ -359,7 +215,5 @@ def prolong(
     j = jax.lax.broadcasted_iota(jnp.int32, base.shape, 1)
     oi = (i & 1) == 1
     oj = (j & 1) == 1
-    fine = jnp.where(oi & oj, diag,
+    return jnp.where(oi & oj, diag,
                      jnp.where(oi, down, jnp.where(oj, right, base)))
-    out = jnp.zeros(pshape_fine, dtype)
-    return out.at[:nfx, :nfy].set(fine[:nfx, :nfy])

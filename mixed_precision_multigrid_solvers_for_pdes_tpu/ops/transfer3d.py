@@ -1,10 +1,9 @@
 """3D intergrid transfers: 27-point full-weighting and trilinear prolongation.
 
-3D siblings of ops/transfer.py, sharing its hard-won TPU rules:
-- never materialize a lane-dim decimation/interleave through XLA (stride-2
-  conv/slice/reshape all trigger catastrophic relayouts) — route the z (lane)
-  axis through chunk-local MXU matmuls at Precision.HIGHEST (exact);
-  x/y decimation and interleave are legal outer/sublane reshapes;
+3D siblings of ops/transfer.py, sharing its rules:
+- restriction is a parity-plane decomposition (one reshape into eight
+  planes, then unit rolls of whole planes); prolongation interleaves axis
+  by axis;
 - no chained ring scatters (the GSPMD partitioner miscompiled them in 2D):
   one `.at[].set` per produced array + iota-mask `where` merges;
 - Neumann 'reflect' restriction installs reflected values into the padding
@@ -17,10 +16,6 @@ import itertools
 
 import jax
 import jax.numpy as jnp
-
-from .transfer import _decim_matrix
-
-_CHUNK = 256
 
 
 def _restrict_full_parity3(rf, dtype):
@@ -49,29 +44,6 @@ def _restrict_full_parity3(rf, dtype):
     return acc / 64.0
 
 
-def _restrict_full_matmul3(rf, dtype):
-    """TPU fast path: fused separable tri-sum + x/y reshape decimation +
-    chunk-local MXU z decimation (exact at HIGHEST)."""
-    rf = rf.astype(dtype)
-
-    def tri(a, ax):
-        return 2.0 * a + jnp.roll(a, 1, ax) + jnp.roll(a, -1, ax)
-
-    w = tri(tri(tri(rf, 0), 1), 2) / 64.0
-    px, py, pz = w.shape
-    w = w.reshape(px // 2, 2, py, pz)[:, 0]            # x decimation
-    w = w.reshape(px // 2, py // 2, 2, pz)[:, :, 0]    # y decimation
-    # z (lane) decimation via chunk-local matmuls
-    if pz % _CHUNK:
-        D = jnp.asarray(_decim_matrix(pz, pz // 2), dtype)
-        return jnp.dot(w, D, precision=jax.lax.Precision.HIGHEST)
-    D = jnp.asarray(_decim_matrix(_CHUNK, _CHUNK // 2), dtype)
-    v = w.reshape(px // 2, py // 2, pz // _CHUNK, _CHUNK)
-    c = jnp.einsum("xycz,zk->xyck", v, D,
-                   precision=jax.lax.Precision.HIGHEST)
-    return c.reshape(px // 2, py // 2, pz // 2)
-
-
 def _injection_full3(rf, dtype):
     px, py, pz = rf.shape
     v = rf.astype(dtype).reshape(px // 2, 2, py // 2, 2, pz // 2, 2)
@@ -90,6 +62,14 @@ def restrict3d(rf, ncx: int, ncy: int, ncz: int, pshape_coarse, *,
         for ax in range(3):
             if wrap[ax]:
                 continue
+            if rf.shape[ax] - 1 == nfs[ax]:
+                # x is padded to nx + 1 only: the wrapped low-side ghost
+                # (last row) and the high-side ghost (row nf) would be one
+                # row. Two spare rows separate them; the parity planes of
+                # the extra rows land past the coarse grid and are dropped.
+                pad = [(0, 0)] * 3
+                pad[ax] = (0, 2)
+                rf = jnp.pad(rf, pad)
             idx = jax.lax.broadcasted_iota(jnp.int32, rf.shape, ax)
             rf = jnp.where(idx == rf.shape[ax] - 1, jnp.roll(rf, -2, ax), rf)
             rf = jnp.where(idx == nfs[ax], jnp.roll(rf, 2, ax), rf)
@@ -97,12 +77,7 @@ def restrict3d(rf, ncx: int, ncy: int, ncz: int, pshape_coarse, *,
     if method == "injection":
         c = _injection_full3(rf, dtype)
     elif method == "full_weighting":
-        if (jax.default_backend() == "tpu"
-                and jnp.dtype(dtype) in (jnp.dtype(jnp.float32),
-                                         jnp.dtype(jnp.bfloat16))):
-            c = _restrict_full_matmul3(rf, dtype)
-        else:
-            c = _restrict_full_parity3(rf, dtype)
+        c = _restrict_full_parity3(rf, dtype)
     else:
         raise ValueError(f"unknown restriction {method!r}")
 
@@ -128,51 +103,10 @@ def restrict3d(rf, ncx: int, ncy: int, ncz: int, pshape_coarse, *,
     return res
 
 
-def _zero_interleave_z(c, dtype):
-    """(.., pzc) -> (.., 2*pzc), values at even lanes (transpose-decimation
-    as chunk-local MXU matmuls)."""
-    *lead, pzc = c.shape
-    HC = _CHUNK // 2
-    if pzc % HC:
-        T = jnp.asarray(_decim_matrix(2 * pzc, pzc).T, dtype)
-        return jnp.dot(c, T, precision=jax.lax.Precision.HIGHEST)
-    T = jnp.asarray(_decim_matrix(_CHUNK, HC).T, dtype)
-    v = c.reshape(*lead, pzc // HC, HC)
-    out = jnp.einsum("...cz,zk->...ck", v, T,
-                     precision=jax.lax.Precision.HIGHEST)
-    return out.reshape(*lead, 2 * pzc)
-
-
-def _prolong_matmul3(ec, nfx, nfy, nfz, pshape_fine, dtype):
-    """Trilinear prolongation = zero-interleave (x, y via reshapes; z via
-    MXU) + separable [1/2 1 1/2]^3 roll convolution + nf cutoff."""
-    pxc, pyc, pzc = ec.shape
-    pxf, pyf, pzf = pshape_fine
-    c = ec.astype(dtype)
-    zx = jnp.stack([c, jnp.zeros_like(c)], axis=1).reshape(2 * pxc, pyc, pzc)
-    zy = jnp.stack([zx, jnp.zeros_like(zx)], axis=2).reshape(
-        2 * pxc, 2 * pyc, pzc)
-    fz = _zero_interleave_z(zy, dtype)
-    half = jnp.asarray(0.5, dtype)
-    w = fz
-    for ax in range(3):  # separable (I + S+/2 + S-/2) per axis
-        w = w + half * (jnp.roll(w, 1, ax) + jnp.roll(w, -1, ax))
-    w = w[:pxf, :pyf, :pzf]
-    i = jax.lax.broadcasted_iota(jnp.int32, (pxf, pyf, pzf), 0)
-    j = jax.lax.broadcasted_iota(jnp.int32, (pxf, pyf, pzf), 1)
-    k = jax.lax.broadcasted_iota(jnp.int32, (pxf, pyf, pzf), 2)
-    return jnp.where((i < nfx) & (j < nfy) & (k < nfz), w,
-                     jnp.zeros((), dtype))
-
-
 def prolong3d(ec, ncx: int, ncy: int, ncz: int, nfx: int, nfy: int, nfz: int,
               pshape_fine, *, dtype=None):
     """Coarse -> fine trilinear interpolation."""
     dtype = dtype or ec.dtype
-    if (jax.default_backend() == "tpu"
-            and jnp.dtype(dtype) in (jnp.dtype(jnp.float32),
-                                     jnp.dtype(jnp.bfloat16))):
-        return _prolong_matmul3(ec, nfx, nfy, nfz, pshape_fine, dtype)
     c = ec[:ncx, :ncy, :ncz].astype(dtype)
     half = jnp.asarray(0.5, dtype)
 

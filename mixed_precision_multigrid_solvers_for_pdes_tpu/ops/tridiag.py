@@ -1,11 +1,10 @@
-"""Batched tridiagonal solves, TPU-native.
+"""Batched tridiagonal solves.
 
-``jax.lax.linalg.tridiagonal_solve`` has no practical TPU lowering (a 129^2
-line-smoother compile/run did not finish in 10 minutes on v5e); the
-accelerator-native algorithm is **parallel cyclic reduction** (PCR):
-ceil(log2(n)) rounds of whole-array elementwise ops, no sequential scan.
-Used by the line/ADI smoothers (ops/smooth.py) and the line preconditioner
-(preconditioning/diagonal.py).
+``tridiagonal_solve`` wraps ``jax.lax.linalg.tridiagonal_solve`` (cuSPARSE
+on the GPU, LAPACK on the CPU). The cyclic (periodic) solve uses
+**parallel cyclic reduction** (PCR): ceil(log2(n)) rounds of whole-array
+elementwise ops, no sequential scan. Used by the line/ADI smoothers
+(ops/smooth.py) and the line preconditioner (preconditioning/diagonal.py).
 
 Solves (dl_i x_{i-1} + d_i x_i + du_i x_{i+1} = b_i) along ``axis``; rows are
 independent across the other axes (batched). dl[0]/du[n-1] are ignored.
@@ -116,15 +115,18 @@ def cyclic_tridiagonal_solve(dl, d, du, b, axis: int = -1):
 
 
 def tridiagonal_solve(dl, d, du, b, axis: int = -1):
-    """Dispatch: PCR on TPU, LAPACK-backed lax solver elsewhere.
+    """Batched solve along ``axis`` with ``jax.lax.linalg.tridiagonal_solve``.
 
-    ``b`` has the same shape as the diagonals (single RHS per system)."""
-    if jax.default_backend() == "tpu":
-        return pcr_solve(dl, d, du, b, axis)
+    ``b`` has the same shape as the diagonals (single RHS per system).
+    Neither cuSPARSE nor LAPACK takes bf16, so bf16 systems are solved in
+    float32 and the result is cast back."""
+    dtype = b.dtype
+    if dtype == jnp.bfloat16:
+        dl, d, du, b = (x.astype(jnp.float32) for x in (dl, d, du, b))
     axis = axis % b.ndim
     if axis != b.ndim - 1:
         dl, d, du, b = (jnp.moveaxis(x, axis, -1) for x in (dl, d, du, b))
     out = jax.lax.linalg.tridiagonal_solve(dl, d, du, b[..., None])[..., 0]
     if axis != b.ndim - 1:
         out = jnp.moveaxis(out, -1, axis)
-    return out
+    return out.astype(dtype)

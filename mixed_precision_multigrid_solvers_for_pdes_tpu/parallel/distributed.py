@@ -15,6 +15,7 @@ parallel/halo_solve.py; this module is the portable default.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import jax
@@ -33,16 +34,31 @@ def _sharding_fn(mesh):
     return mesh_mod.grid_sharding
 
 
+@dataclasses.dataclass(frozen=True)
+class _Constrainer:
+    """(array, Level) -> array hook injecting per-level sharding constraints.
+
+    Hashable by value: the jitted solves take the hook as a static argument,
+    so two hooks for the same mesh must compare equal or every call would
+    compile the solve again."""
+
+    mesh: Any
+    min_points_per_device: int
+    rank: int  # 2: (x, y) grid rule of the mesh; 3: (x, y) split, z local
+
+    def __call__(self, arr, lev):
+        if self.rank == 3:
+            sharding = mesh_mod.grid_sharding3d(self.mesh, lev.grid,
+                                                self.min_points_per_device)
+        else:
+            sharding = _sharding_fn(self.mesh)(self.mesh, lev.grid,
+                                               self.min_points_per_device)
+        return jax.lax.with_sharding_constraint(arr, sharding)
+
+
 def make_constrainer(mesh, min_points_per_device: int = 16):
     """(array, Level) -> array hook injecting per-level sharding constraints."""
-    sharding = _sharding_fn(mesh)
-
-    def constrain(arr, lev):
-        return jax.lax.with_sharding_constraint(
-            arr, sharding(mesh, lev.grid, min_points_per_device)
-        )
-
-    return constrain
+    return _Constrainer(mesh, min_points_per_device, 2)
 
 
 def shard_inputs(mesh, levels, *arrays, min_points_per_device: int = 16):
@@ -73,11 +89,4 @@ def sharded_solve(
 def make_constrainer3d(mesh, min_points_per_device: int = 16):
     """3D constrainer: (x, y) block-partitioned, z local (lane axis +
     line-smoother direction stay on-device)."""
-
-    def constrain(arr, lev):
-        return jax.lax.with_sharding_constraint(
-            arr, mesh_mod.grid_sharding3d(mesh, lev.grid,
-                                          min_points_per_device)
-        )
-
-    return constrain
+    return _Constrainer(mesh, min_points_per_device, 3)

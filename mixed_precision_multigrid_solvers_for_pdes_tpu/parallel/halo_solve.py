@@ -4,9 +4,9 @@ Round-1's explicit path (parallel/halo.py) covered smoothing + norms only;
 this module runs the ENTIRE solve — outer while_loop, every smoothing sweep,
 residual, restriction, prolongation, and the coarse-level agglomeration —
 as a single SPMD program with explicitly scheduled ``ppermute`` halo
-exchanges. It is the TPU-native realization of what the reference scaffolded
-with CUDA streams and never finished (reference gpu/multi_gpu_solver.py:76-88
-compute/send/recv streams; :244-643 the DD iteration whose "coarse
+exchanges. It realizes what the reference scaffolded with CUDA streams and
+never finished (reference gpu/multi_gpu_solver.py:76-88 compute/send/recv
+streams; :244-643 the DD iteration whose "coarse
 correction" was a damped-residual placeholder :574-593).
 
 Design:
@@ -50,7 +50,7 @@ this module raises for them.
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache, partial
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import jax
@@ -359,8 +359,7 @@ def _install_reflection(rh, spec, nx, ny, bx, by):
 def _restrict_block(r, lev_f: Level, lev_c: Level, mx, my, unknown_c,
                     bxc: int, byc: int, wx=False, wy=False):
     """Blockwise full-weighting restriction: 9-point sum on the halo-extended
-    residual, then 2:1 decimation (sublane reshape + selection matmul —
-    ops/transfer.py's MXU formulation, reused per block)."""
+    residual, then 2:1 decimation (the even-even parity plane)."""
     bx, by = r.shape
     rh = _with_halo(r, mx, my, wx, wy)
     if not lev_f.spec.plain:
@@ -369,50 +368,30 @@ def _restrict_block(r, lev_f: Level, lev_c: Level, mx, my, unknown_c,
     row = 2.0 * rh + jnp.roll(rh, 1, 0) + jnp.roll(rh, -1, 0)
     W = (2.0 * row + jnp.roll(row, 1, 1) + jnp.roll(row, -1, 1)) / 16.0
     W = W[1:-1, 1:-1]                       # back to the (bx, by) core
-    W2 = W.reshape(bx // 2, 2, by)[:, 0, :]  # sublane decimation
-    D = jnp.asarray(transfer._decim_matrix(by, by // 2), W2.dtype)
-    c = jnp.dot(W2, D, precision=jax.lax.Precision.HIGHEST)
-    c = c.astype(lev_c.dtype)
+    c = W.reshape(bx // 2, 2, by // 2, 2)[:, 0, :, 0].astype(lev_c.dtype)
     return jnp.where(unknown_c, c, jnp.zeros((), lev_c.dtype))
 
 
 def _prolong_block(ec, lev_f: Level, mx, my, bx: int, by: int,
                    wx=False, wy=False):
     """Blockwise bilinear prolongation: coarse block + 1-ring east/north halo,
-    then interpolation matmuls (exact, no lane reshapes). On periodic axes
-    the last block's east/north halo wraps to block 0 — the +1 parent of the
-    final odd fine node is coarse node 0's duplicate."""
-    bxc, byc = ec.shape
+    then the parity interleave of ops/transfer.py. On periodic axes the last
+    block's east/north halo wraps to block 0 — the +1 parent of the final
+    odd fine node is coarse node 0's duplicate."""
     # east/north halo only (parents of odd fine rows/cols at the block end)
     bot = _shift(ec[:1, :], "x", -1, mx, wx)
     extx = jnp.concatenate([ec, bot], axis=0)           # (bxc+1, byc)
     right = _shift(extx[:, :1], "y", -1, my, wy)
     ext = jnp.concatenate([extx, right], axis=1)        # (bxc+1, byc+1)
-    Ex = jnp.asarray(_block_interp(bxc + 1, bx), lev_f.dtype)
-    Ey = jnp.asarray(_block_interp(byc + 1, by), lev_f.dtype)
-    HIGH = jax.lax.Precision.HIGHEST
-    tall = jax.lax.dot_general(
-        Ex, ext.astype(lev_f.dtype),
-        dimension_numbers=(((0,), (0,)), ((), ())), precision=HIGH,
-    )
-    return jnp.dot(tall, Ey, precision=HIGH)
+    return _interp_ext(ext, bx, by, lev_f.dtype)
 
 
-@lru_cache(maxsize=None)
-def _block_interp(ncoarse: int, nfine: int):
-    """Block-local bilinear interpolation matrix ((ncoarse, nfine), numpy).
-
-    Local fine index p has parents p//2 (and p//2 + 1 when p is odd); the
-    +1 parent of the last odd row comes from the halo entry ncoarse-1."""
-    E = np.zeros((ncoarse, nfine), np.float32)
-    for p in range(nfine):
-        i = p // 2
-        if p % 2 == 0:
-            E[i, p] = 1.0
-        else:
-            E[i, p] = 0.5
-            E[i + 1, p] = 0.5
-    return E
+def _interp_ext(ext, bx: int, by: int, dtype):
+    """(bxc+1, byc+1) coarse window with its east/north ring -> (bx, by)
+    bilinear fine block."""
+    fine = transfer.bilinear_interleave(
+        ext[:-1, :-1], ext[:-1, 1:], ext[1:, :-1], ext[1:, 1:], dtype)
+    return fine[:bx, :by]
 
 
 # ---------------------------------------------------------------------------
@@ -657,14 +636,7 @@ def _halo_solve_core(f_h, u_h, sten_leaves, *, mesh, plan, cfg, overlap,
                 start = (jax.lax.axis_index("x") * bxc,
                          jax.lax.axis_index("y") * byc)
                 win = jax.lax.dynamic_slice(ec_p, start, (bxc + 1, byc + 1))
-                Ex = jnp.asarray(_block_interp(bxc + 1, bx), win.dtype)
-                Ey = jnp.asarray(_block_interp(byc + 1, by), win.dtype)
-                HIGH = jax.lax.Precision.HIGHEST
-                tall = jax.lax.dot_general(
-                    Ex, win.astype(lev_f.dtype),
-                    dimension_numbers=(((0,), (0,)), ((), ())),
-                    precision=HIGH)
-                return jnp.dot(tall, Ey, precision=HIGH)
+                return _interp_ext(win, bx, by, lev_f.dtype)
             # replicated -> replicated
             if lev_c.sync is not None:
                 ec = lev_c.sync(ec)  # coarse dup mirrors node 0 (mg _cycle)

@@ -1,6 +1,6 @@
 """Device-mesh construction and sharding specs for spatial domain decomposition.
 
-TPU-native replacement for the reference's thread-driven multi-GPU layer
+Replacement for the reference's thread-driven multi-GPU layer
 (reference gpu/multi_gpu.py:39-298, multi_gpu_solver.py:22-117):
 
 - STRIP_X / STRIP_Y / BLOCK_2D decompositions (reference
@@ -8,7 +8,8 @@ TPU-native replacement for the reference's thread-driven multi-GPU layer
 - ADAPTIVE decomposition (pick the longer dimension,
   reference multi_gpu_solver.py:438-443) becomes mesh-shape selection here.
 - Device discovery/load-balancing (reference multi_gpu.py:85-264) collapses
-  to ``jax.devices()`` — TPU slices are homogeneous.
+  to ``jax.devices()``: the cards of one host are identical and joined all
+  to all, so the mesh shape follows the algorithm alone.
 
 Grid levels are sharded ('x','y') over padded arrays while each device keeps
 at least a tile; below that the level is **replicated** (coarse-level

@@ -5,9 +5,9 @@ Counterpart of the reference preconditioning package
 multigrid_preconditioner.py), re-designed as pure callables z = M(r) that jit
 into the Krylov loop. The reference's ILU — an inherently sequential
 triangular-solve preconditioner — is kept for parity as a host/CPU path and
-superseded on TPU by the Chebyshev polynomial preconditioner (same role:
-stronger-than-Jacobi smoothing of the residual, but expressed as stencil
-applies that map onto the VPU).
+superseded on the device by the Chebyshev polynomial preconditioner (same
+role: stronger-than-Jacobi smoothing of the residual, but expressed as
+stencil applies that run in parallel).
 """
 
 from .base import (  # noqa: F401

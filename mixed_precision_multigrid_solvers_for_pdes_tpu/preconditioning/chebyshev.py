@@ -1,4 +1,4 @@
-"""Chebyshev polynomial preconditioner — the TPU-native ILU replacement.
+"""Chebyshev polynomial preconditioner — the device-side ILU replacement.
 
 The reference's ILU(k) (reference preconditioning/ilu.py:18-383) earns its
 keep by being a stronger-than-Jacobi approximate inverse; its triangular

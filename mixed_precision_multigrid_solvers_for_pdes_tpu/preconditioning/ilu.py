@@ -12,8 +12,8 @@ modified-diagonal recurrence
 with unit-lower / upper triangular solves swept over grid anti-diagonals
 (wavefronts) so each sweep step is vectorized. Triangular substitution is
 inherently sequential across wavefronts — this is a HOST path for parity and
-CPU-side comparisons; on TPU use ``chebyshev`` or
-``multigrid_preconditioner`` (same role, hardware-native shape).
+CPU-side comparisons; on the device use ``chebyshev`` or
+``multigrid_preconditioner`` (same role, data-parallel shape).
 """
 
 from __future__ import annotations
@@ -171,7 +171,7 @@ class ILUKPreconditioner:
     ModifiedILUPreconditioner ilu.py:386-441).
 
     Triangular solves are sequential by nature — host/numpy parity path, like
-    ILU(0) above; on TPU use chebyshev / multigrid_preconditioner.
+    ILU(0) above; on the device use chebyshev / multigrid_preconditioner.
     """
 
     def __init__(self, grid: Grid, stencil: Stencil, unknown, *,

@@ -10,8 +10,7 @@ from .multigrid import (  # noqa: F401
 )
 from . import refinement  # noqa: F401
 from .refinement import adaptive_solve, adaptive_solve3d, ir_solve  # noqa: F401
-from . import iterative, krylov, multigrid3d, plane_solve  # noqa: F401
-from .plane_solve import plane_ir_solve  # noqa: F401
+from . import iterative, krylov, multigrid3d  # noqa: F401
 from .multigrid3d import build_hierarchy3d, mg_cycle3d, mg_solve3d  # noqa: F401
 from .iterative import iterative_solve  # noqa: F401
 from .krylov import bicgstab, gmres, pcg, stencil_matvec  # noqa: F401

@@ -200,43 +200,18 @@ def smooth3d(st: Stencil3D, u, f, unknown, *, method: str = "rbgs",
 # cycles + solve
 # --------------------------------------------------------------------------
 
-def _smooth3_dispatch(lev, u, f, unknown, *, method, sweeps, omega, sync,
-                      backend="auto", reverse=False):
-    """Route to the Pallas rolling-plane kernel when eligible
-    (ops/dispatch.pallas_smooth3d_ok), else the XLA smoother above."""
-    from ..ops import dispatch
-
-    if sync is None and dispatch.pallas_smooth3d_ok(
-        lev.stencil, u, lev, backend, method
-    ):
-        from ..ops.pallas_kernels import smooth3d as ps3
-
-        g = lev.grid
-        return ps3.rbgs_planes(
-            lev.stencil, u, f, nx=g.nx, ny=g.ny, nz=g.nz,
-            sweeps=sweeps, omega=omega, reverse=reverse,
-        )
-    return smooth3d(lev.stencil, u, f, unknown, method=method, sweeps=sweeps,
-                    omega=omega, sync=sync, reverse=reverse)
-
-
 def _cycle3(levels, u, f, lvl: int, cfg: MultigridConfig, cycle_type: str,
             constrain=None):
     lev = levels[lvl]
     unknown = lev.unknown
     sync = lev.sync
     if lvl == len(levels) - 1:
-        return _smooth3_dispatch(lev, u, f, unknown, method="rbgs",
-                                 sweeps=cfg.coarse_sweeps, omega=1.0,
-                                 sync=sync, backend=cfg.backend)
+        return smooth3d(lev.stencil, u, f, unknown, method="rbgs",
+                        sweeps=cfg.coarse_sweeps, omega=1.0, sync=sync)
 
-    u = _smooth3_dispatch(lev, u, f, unknown, method=cfg.smoother,
-                          sweeps=cfg.pre_sweeps, omega=cfg.omega, sync=sync,
-                          backend=cfg.backend)
+    u = smooth3d(lev.stencil, u, f, unknown, method=cfg.smoother,
+                 sweeps=cfg.pre_sweeps, omega=cfg.omega, sync=sync)
     nxt = levels[lvl + 1]
-    from ..ops import dispatch
-
-    fused = constrain is None and dispatch.transfer_fused3d_ok(lev, nxt, cfg)
     plain = all(
         lev.spec.side(s).kind in (BCKind.DIRICHLET, BCKind.PERIODIC)
         for s in bc3.SIDES3D
@@ -245,24 +220,14 @@ def _cycle3(levels, u, f, lvl: int, cfg: MultigridConfig, cycle_type: str,
         lev.spec.side(s).kind == BCKind.PERIODIC
         for s in ("west", "south", "bottom")
     )
-    if fused:
-        from ..ops.pallas_kernels import transfer3d as pt3
-
-        fc = pt3.residual_restrict3d(
-            lev.stencil, u, f,
-            nxf=lev.grid.nx, nyf=lev.grid.ny, nzf=lev.grid.nz,
-            ncx=nxt.grid.nx, ncy=nxt.grid.ny, ncz=nxt.grid.nz,
-            pshape_coarse=nxt.grid.shape_padded, out_dtype=nxt.dtype,
-        )
-    else:
-        r = st3.residual(lev.stencil, u, f, unknown, sync)
-        if any(wrap):
-            r = sync(r)
-        fc = transfer3d.restrict3d(
-            r, nxt.grid.nx, nxt.grid.ny, nxt.grid.nz, nxt.grid.shape_padded,
-            method="full_weighting", boundary="zero" if plain else "reflect",
-            dtype=nxt.dtype, wrap=wrap,
-        )
+    r = st3.residual(lev.stencil, u, f, unknown, sync)
+    if any(wrap):
+        r = sync(r)
+    fc = transfer3d.restrict3d(
+        r, nxt.grid.nx, nxt.grid.ny, nxt.grid.nz, nxt.grid.shape_padded,
+        method="full_weighting", boundary="zero" if plain else "reflect",
+        dtype=nxt.dtype, wrap=wrap,
+    )
     if constrain is not None:
         fc = constrain(fc, nxt)
     if not plain:
@@ -274,27 +239,18 @@ def _cycle3(levels, u, f, lvl: int, cfg: MultigridConfig, cycle_type: str,
         ec = _cycle3(levels, ec, fc, lvl + 1, cfg, "W", constrain)
     if any(wrap):
         ec = nxt.sync(ec)
-    if fused:
-        from ..ops.pallas_kernels import transfer3d as pt3
-
-        u = pt3.prolong_correct3d(
-            ec, u, ncx=nxt.grid.nx, ncy=nxt.grid.ny, ncz=nxt.grid.nz,
-            nxf=lev.grid.nx, nyf=lev.grid.ny, nzf=lev.grid.nz,
-        )
-    else:
-        e = transfer3d.prolong3d(
-            ec, nxt.grid.nx, nxt.grid.ny, nxt.grid.nz,
-            lev.grid.nx, lev.grid.ny, lev.grid.nz, lev.grid.shape_padded,
-            dtype=lev.dtype,
-        )
-        if constrain is not None:
-            e = constrain(e, lev)
-        u = jnp.where(unknown, u + e, u)
-    u = _smooth3_dispatch(lev, u, f, unknown, method=cfg.smoother,
-                          sweeps=cfg.post_sweeps, omega=cfg.omega, sync=sync,
-                          backend=cfg.backend,
-                          reverse=cfg.symmetric and cfg.smoother in
-                          ("rbgs", "gauss_seidel", "red_black", "sor"))
+    e = transfer3d.prolong3d(
+        ec, nxt.grid.nx, nxt.grid.ny, nxt.grid.nz,
+        lev.grid.nx, lev.grid.ny, lev.grid.nz, lev.grid.shape_padded,
+        dtype=lev.dtype,
+    )
+    if constrain is not None:
+        e = constrain(e, lev)
+    u = jnp.where(unknown, u + e, u)
+    u = smooth3d(lev.stencil, u, f, unknown, method=cfg.smoother,
+                 sweeps=cfg.post_sweeps, omega=cfg.omega, sync=sync,
+                 reverse=cfg.symmetric and cfg.smoother in
+                 ("rbgs", "gauss_seidel", "red_black", "sor"))
     return u
 
 

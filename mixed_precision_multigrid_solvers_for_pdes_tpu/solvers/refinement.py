@@ -1,11 +1,11 @@
 """Mixed-precision solves: iterative refinement and adaptive staging.
 
-This is the TPU-native replacement for the reference's runtime dtype
+This is the replacement for the reference's runtime dtype
 switching (reference core/precision.py:155-268, gpu/gpu_precision.py:229-289).
 Under jit dtypes are static, so mixed precision is structured as:
 
 1. **Iterative refinement** (``ir_solve``): the solution and residual live in
-   float64 (XLA-emulated — cheap because it's O(N) work per outer step), while
+   float64 (cheap because it's O(N) work per outer step), while
    each correction is computed by low-precision multigrid cycles (fp32/bf16 —
    the fast path). Converges to fp64 accuracy as long as
    kappa(A)*eps_low < 1; for the 5-point Laplacian kappa ~ (2/pi/h)^2, so fp32
@@ -76,8 +76,7 @@ def _ir_jit(levels, st_hi, f, u0, cfg: MultigridConfig, inner_cycles: int,
 
     def body(carry):
         # the residual of the CURRENT iterate rides the carry: one fp64
-        # residual per outer step, not two (the f64 stencil apply is
-        # XLA-emulated, ~150 us at 1025^2 — measured scripts/ir_profile.py)
+        # residual per outer step, not two
         u, r, k, rnorm, hist = carry
         # low-precision correction solve: A e = r, e0 = 0
         e = jnp.zeros(lev0.grid.shape_padded, lo)

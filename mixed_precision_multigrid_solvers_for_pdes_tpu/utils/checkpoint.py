@@ -1,7 +1,7 @@
 """Solver-state checkpoint/resume.
 
 The reference has NO solver checkpointing (SURVEY.md section 5: persistence is
-results-only). Long time-stepping runs on preemptible TPU slices need it, so
+results-only). Long time-stepping runs on preemptible machines need it, so
 this build adds a small npz-based checkpoint manager: atomic writes
 (tmp + rename), monotonically numbered steps, keep-last-k retention, and a
 metadata sidecar. Arrays are pulled to host once per save — callers control

@@ -76,7 +76,6 @@ class SolverConfig:
     tol: float = 1e-10
     restriction: str = "full_weighting"
     prolongation: str = "bilinear"
-    backend: str = "auto"
     use_fmg: bool = False
 
     def validate(self, grid: Optional[GridConfig] = None) -> None:
@@ -108,7 +107,6 @@ class SolverConfig:
             omega=self.omega, max_levels=self.max_levels,
             restriction=self.restriction, prolongation=self.prolongation,
             max_iterations=self.max_iterations, tol=self.tol,
-            backend=self.backend,
         )
 
 

@@ -120,7 +120,7 @@ def benchmark_function(
 
 
 def trace_profile(path: str = "/tmp/jax_trace"):
-    """jax.profiler trace context for xprof/tensorboard inspection — the TPU
+    """jax.profiler trace context for xprof/tensorboard inspection — the
     counterpart of the reference's CUDA-event GPU profiler
     (reference gpu/gpu_profiler.py:103-209)."""
     return jax.profiler.trace(path)

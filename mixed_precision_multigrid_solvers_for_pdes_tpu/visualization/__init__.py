@@ -6,7 +6,7 @@ convergence histories, performance comparisons, grid hierarchies, analysis
 plots, interactive exploration, and a solver dashboard. All figure functions
 return the Figure and accept ``save=path``; the matplotlib import is deferred
 and forced to Agg when no display is present, so nothing here can break a
-headless TPU host.
+headless host.
 """
 
 from .solution_plots import SolutionVisualizer  # noqa: F401

@@ -2,7 +2,7 @@
 
 Counterpart of reference visualization/realtime_dashboard.py:50-726
 (SolverDashboard + MetricsCollector + LiveDataStreamer: matplotlib
-FuncAnimation at 10 Hz with a psutil metrics thread). On a headless TPU host
+FuncAnimation at 10 Hz with a psutil metrics thread). On a headless host
 the dashboard renders on demand (``render()``/``save()``); when a display is
 available ``live()`` drives the same panels with FuncAnimation. Metrics come
 from the analysis.ConvergenceMonitor plus host memory/time counters.

@@ -1,7 +1,7 @@
 """Grid hierarchy and sharding-layout visualization.
 
 Counterpart of reference visualization/grid_visualization.py:24-384
-(GridVisualizer: hierarchy, refinement patterns) plus a TPU-specific addition:
+(GridVisualizer: hierarchy, refinement patterns) plus an addition:
 device-partition layout maps for sharded levels.
 """
 
@@ -55,7 +55,7 @@ class GridVisualizer:
                              min_points_per_device: int = 16,
                              save=None, show=False):
         """Device-ownership map of a level under an (mx, my) mesh —
-        the TPU counterpart of the reference's domain-decomposition diagrams
+        the counterpart of the reference's domain-decomposition diagrams
         (reference multi_gpu_solver.py:342-445 strip/block partitions)."""
         plt = get_plt()
         px, py = grid.shape_padded

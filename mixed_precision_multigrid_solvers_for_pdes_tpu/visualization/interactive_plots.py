@@ -2,7 +2,7 @@
 
 Counterpart of reference visualization/interactive_plots.py:23-81 (and the
 1131-line widget version in the reference root). Widget-based interactivity
-is display-bound; on a headless TPU host the honest equivalent is parameter
+is display-bound; on a headless host the honest equivalent is parameter
 *sweeps* rendered as multi-panel figures, with an optional ipywidgets path
 when running in a notebook.
 """

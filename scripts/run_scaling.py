@@ -3,10 +3,10 @@
 
 Counterpart of the reference's multi-GPU scaling tables (reference
 docs/results.md:358-384 — 93.9% strong @2 GPUs, 57.6% weak @16), measured
-here over real `jax.sharding.Mesh` SPMD solves. On a single-chip session run
+here over real `jax.sharding.Mesh` SPMD solves. Without several GPUs, run
 with JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 to
-exercise the partitioned code path; on a real slice the same script measures
-honest ICI scaling.
+exercise the partitioned code path; on a multi-GPU host the same script
+measures scaling over the cards.
 
 Usage: python scripts/run_scaling.py [--mode weak|strong] [--base 513]
 """
@@ -52,7 +52,7 @@ def time_cycles(mesh, n, k: int = 32, runs: int = 3) -> float:
 
     nx, ny = (n, n) if isinstance(n, int) else n
     grid = Grid(nx, ny)
-    cfg = MultigridConfig(smoother="rbgs", omega=1.0, backend="xla")
+    cfg = MultigridConfig(smoother="rbgs", omega=1.0)
     levels = mg.build_hierarchy(grid, dtype="float32", cfg=cfg)
     constrain = parallel.make_constrainer(mesh)
     # timing only — cycle cost is value-independent (no data-dependent
@@ -140,7 +140,7 @@ def main():
             "regression detection only — 'efficiency' here measures "
             "emulation overhead, NOT hardware scaling (all N shards "
             "timeshare one core, so efficiency necessarily falls like "
-            "1/N). Real weak/strong scaling requires a multi-chip slice; "
+            "1/N). Real weak/strong scaling requires several GPUs; "
             "the identical script measures it there unchanged.", "",
         ]
     for mode in ("strong", "weak"):

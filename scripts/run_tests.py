@@ -28,7 +28,7 @@ BATCHES = [
     ["tests/unit/test_multigrid3d.py", "tests/unit/test_heat.py",
      "tests/unit/test_krylov.py", "tests/unit/test_periodic.py"],
     ["tests/unit/test_parallel.py", "tests/unit/test_tooling.py",
-     "tests/unit/test_visualization.py", "tests/unit/test_pallas_kernels.py",
+     "tests/unit/test_visualization.py", "tests/unit/test_reference3d.py",
      "tests/integration"],
 ]
 

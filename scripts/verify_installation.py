@@ -3,7 +3,7 @@
 
 Counterpart of the reference's scripts/verify_installation.py (455 LoC of
 import checks); this one actually solves problems. Runs on whatever backend
-jax picks (TPU if present); pass --cpu to force the CPU backend with an
+jax picks (the GPU if present); pass --cpu to force the CPU backend with an
 8-device virtual mesh so the sharding row runs anywhere.
 
 Usage: python scripts/verify_installation.py [--cpu]

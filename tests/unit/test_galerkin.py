@@ -26,7 +26,7 @@ from mixed_precision_multigrid_solvers_for_pdes_tpu.solvers.multigrid import (
 
 
 def _cfg(**kw):
-    base = dict(smoother="rbgs", omega=1.0, tol=1e-10, backend="xla",
+    base = dict(smoother="rbgs", omega=1.0, tol=1e-10,
                 coarsening="galerkin")
     base.update(kw)
     return MultigridConfig(**base)
@@ -138,8 +138,7 @@ class TestConvergence:
         assert info_g["convergence_factor"] < info_r["convergence_factor"]
 
     def test_f32_rap_chain_rho_unchanged(self):
-        """cfg.galerkin_dtype='float32' (the TPU fast path — f64 RAP is
-        software-emulated on TPU and dominated round-4 setup walls): the
+        """cfg.galerkin_dtype='float32' (half the setup's bytes): the
         jump-problem cycle factor must match the f64 chain to well under
         the gate (coarse coefficients only steer the correction)."""
         prob = P.jump_coefficient_problem(65)

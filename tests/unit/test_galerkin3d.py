@@ -24,7 +24,7 @@ from mixed_precision_multigrid_solvers_for_pdes_tpu.solvers.multigrid import (
 
 
 def _cfg(**kw):
-    base = dict(smoother="rbgs", omega=1.0, tol=1e-10, backend="xla",
+    base = dict(smoother="rbgs", omega=1.0, tol=1e-10,
                 coarsening="galerkin")
     base.update(kw)
     return MultigridConfig(**base)

@@ -20,7 +20,7 @@ from mixed_precision_multigrid_solvers_for_pdes_tpu.solvers.multigrid import (
     MultigridConfig,
 )
 
-CFG = MultigridConfig(smoother="rbgs", omega=1.0, backend="xla",
+CFG = MultigridConfig(smoother="rbgs", omega=1.0,
                       max_iterations=30)
 
 pytestmark = pytest.mark.skipif(

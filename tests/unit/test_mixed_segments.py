@@ -1,7 +1,7 @@
 """Per-segment mixed boundary conditions (reference
 boundary_conditions/advanced_bc.py:219-334 MixedBoundaryCondition):
 spec validation, segment-aware unknown masks, ghost elimination through the
-whole solver stack, O(h^2) MMS convergence, and dispatch-gate safety.
+whole solver stack and O(h^2) MMS convergence.
 """
 
 import jax.numpy as jnp
@@ -19,7 +19,7 @@ from mixed_precision_multigrid_solvers_for_pdes_tpu.solvers.multigrid import (
     MultigridConfig,
 )
 
-CFG = MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-10, backend="xla")
+CFG = MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-10)
 
 
 def _solve(prob, cfg=CFG, **kw):
@@ -159,18 +159,3 @@ class TestMixedSegmentSolve:
         order1 = np.log2(errs[17] / errs[33])
         order2 = np.log2(errs[33] / errs[65])
         assert 1.8 < order1 < 2.2 and 1.8 < order2 < 2.2
-
-    def test_pallas_gates_reject_segmented_specs(self):
-        """A Dirichlet-default side with a Neumann segment must not slip
-        through the all-Dirichlet Pallas gates."""
-        from mixed_precision_multigrid_solvers_for_pdes_tpu.ops import dispatch
-
-        prob = P.mixed_segment_mms(65)
-        cfg = CFG.replace(backend="pallas")
-        levels = mg.build_hierarchy(prob.grid, prob.spec, dtype="float32",
-                                    cfg=cfg)
-        assert not dispatch.transfer_fused_ok(levels[0], levels[1], cfg)
-        assert not dispatch.tail_ok(levels, 0, cfg, "V")
-        u = jnp.zeros(levels[0].grid.shape_padded, jnp.float32)
-        assert not dispatch._pallas_smooth_ok(
-            levels[0].stencil, u, levels[0], "pallas")

@@ -14,8 +14,8 @@ from mixed_precision_multigrid_solvers_for_pdes_tpu.solvers.multigrid import (
     MultigridConfig,
 )
 
-CFG_RBGS = MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-10, backend="xla")
-CFG_JAC = MultigridConfig(smoother="jacobi", omega=0.8, tol=1e-10, backend="xla")
+CFG_RBGS = MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-10)
+CFG_JAC = MultigridConfig(smoother="jacobi", omega=0.8, tol=1e-10)
 
 
 def _solve(prob, cfg, dtype="float64", **kw):
@@ -249,3 +249,25 @@ def test_rectangular_grid_and_domain_order2():
     o1 = np.log2(errors[0] / errors[1])
     o2 = np.log2(errors[1] / errors[2])
     assert 1.8 < o1 < 2.2 and 1.8 < o2 < 2.2, (o1, o2, errors)
+
+
+@pytest.mark.parametrize("n", [33, 65, 129])
+@pytest.mark.parametrize("smoother,omega,bound", [("rbgs", 1.0, 0.08),
+                                                  ("jacobi", 0.8, 0.2)])
+def test_vcycle_contraction_from_entry_level(n, smoother, omega, bound):
+    """Asymptotic V(2,2) contraction on A e = 0 from a random start, from
+    the small entry levels the cycle's coarse tail runs through: h-
+    independent (measured 0.045 RB-GS, 0.13 Jacobi at 33^2-129^2)."""
+    from mixed_precision_multigrid_solvers_for_pdes_tpu.core.grid import Grid
+
+    cfg = MultigridConfig(smoother=smoother, omega=omega, tol=0.0,
+                          rtol=False, max_iterations=8, coarse_sweeps=8)
+    levels = mg.build_hierarchy(Grid(n, n), dtype="float64", cfg=cfg)
+    g = levels[0].grid
+    rng = np.random.default_rng(n)
+    u0 = np.zeros(g.shape_padded)
+    u0[1:n - 1, 1:n - 1] = rng.standard_normal((n - 2, n - 2))
+    _, info = mg.mg_solve(levels, jnp.zeros(g.shape_padded),
+                          jnp.asarray(u0), cfg)
+    assert info["iterations"] == 8
+    assert 0.0 < info["convergence_factor"] < bound

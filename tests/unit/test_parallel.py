@@ -15,7 +15,7 @@ from mixed_precision_multigrid_solvers_for_pdes_tpu.solvers.multigrid import (
     MultigridConfig,
 )
 
-CFG = MultigridConfig(smoother="rbgs", omega=1.0, backend="xla")
+CFG = MultigridConfig(smoother="rbgs", omega=1.0)
 
 pytestmark = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs the 8-device virtual mesh"
@@ -219,7 +219,7 @@ class TestShardedLineSmoothers:
         lines; under GSPMD a line crosses device boundaries, so XLA inserts
         the collectives. Must match the single-device solve."""
         prob = P.poisson_mms_anisotropic(65, ay=0.01)
-        cfg = MultigridConfig(smoother="adi", backend="xla", tol=1e-10)
+        cfg = MultigridConfig(smoother="adi", tol=1e-10)
         levels = mg.build_hierarchy(prob.grid, prob.spec, a=prob.a,
                                     dtype="float64", cfg=cfg)
         f = prob.rhs(jnp.float64)
@@ -298,3 +298,34 @@ class TestDryrun:
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         mod.dryrun_multichip(8)
+
+
+class TestConstrainerIdentity:
+    def test_constrainers_compare_equal_per_mesh(self, mesh):
+        from mixed_precision_multigrid_solvers_for_pdes_tpu.parallel import (
+            distributed,
+        )
+
+        a = distributed.make_constrainer(mesh)
+        b = distributed.make_constrainer(mesh)
+        assert a == b and hash(a) == hash(b)
+        assert a != distributed.make_constrainer(mesh, 32)
+        assert a != distributed.make_constrainer3d(mesh)
+
+    def test_sharded_solve_compiles_once(self, mesh):
+        """Each solve_poisson(mesh=...) call builds a fresh hook; equal
+        hooks must hit the jit cache instead of compiling the solve again."""
+        from mixed_precision_multigrid_solvers_for_pdes_tpu.applications.poisson import (
+            solve_poisson,
+        )
+        from mixed_precision_multigrid_solvers_for_pdes_tpu.solvers import (
+            refinement,
+        )
+
+        prob = P.poisson_mms_sinsin(33)
+        cfg = MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+        before = refinement._ir_jit._cache_size()
+        for _ in range(2):
+            res = solve_poisson(prob, precision="mixed", cfg=cfg, mesh=mesh)
+            assert res.converged
+        assert refinement._ir_jit._cache_size() == before + 1

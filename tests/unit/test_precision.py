@@ -3,6 +3,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import mixed_precision_multigrid_solvers_for_pdes_tpu as mg
 from mixed_precision_multigrid_solvers_for_pdes_tpu.core.precision import (
@@ -17,7 +18,7 @@ from mixed_precision_multigrid_solvers_for_pdes_tpu.solvers.multigrid import (
     MultigridConfig,
 )
 
-CFG = MultigridConfig(smoother="rbgs", omega=1.0, backend="xla")
+CFG = MultigridConfig(smoother="rbgs", omega=1.0)
 
 
 def test_dtype_parsing():
@@ -159,3 +160,23 @@ def test_solve_poisson_auto_precision():
                         cfg=CFG.replace(tol=1e-8))
     assert res.converged
     assert res.errors["l2"] < 1e-3
+
+
+@pytest.mark.parametrize("n", [65, 129])
+def test_mixed_solve_poisson_fmg_start(n):
+    """solve_poisson(precision='mixed', use_fmg=True) starts the refinement
+    from an FMG guess: no more outer iterations than from zero, and the
+    starting residual is already far below ||f||."""
+    from mixed_precision_multigrid_solvers_for_pdes_tpu.applications.poisson import (
+        solve_poisson,
+    )
+
+    prob = P.poisson_mms_sinsin(n)
+    cfg = CFG.replace(tol=1e-9)
+    cold = solve_poisson(prob, precision="mixed", cfg=cfg)
+    warm = solve_poisson(prob, precision="mixed", cfg=cfg, use_fmg=True)
+    assert cold.converged and warm.converged
+    assert warm.iterations <= cold.iterations
+    assert warm.info["initial_residual_norm"] < 0.1 * warm.info["rhs_norm"]
+    assert (warm.info["initial_residual_norm"]
+            < cold.info["initial_residual_norm"])

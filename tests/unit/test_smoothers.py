@@ -3,6 +3,7 @@ implementation (reference tests/unit/test_iterative_solvers.py)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from mixed_precision_multigrid_solvers_for_pdes_tpu.core import bc as bc_mod
 from mixed_precision_multigrid_solvers_for_pdes_tpu.core.grid import Grid
@@ -245,3 +246,158 @@ def test_h1_seminorm_masks_padding():
     v = float(norms.h1_seminorm(jnp.asarray(ep), jnp.asarray(mask), h, h))
     # analytic |e|_H1 = pi/sqrt(2); FD value converges from below
     assert abs(v - np.pi / np.sqrt(2)) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# the XLA smoother against a general loop reference: every point method,
+# constant and variable coefficients, several sweeps
+# ---------------------------------------------------------------------------
+
+OMEGA = {"jacobi": 0.8, "rbgs": 1.0, "sor": 1.3, "rbgs_rev": 1.0}
+
+
+def _fields(n, seed, var):
+    """Stencil (constant, or smooth + 10:1 jump coefficient), unknown mask
+    and random u, f vanishing off the unknowns."""
+    g = Grid(n, n)
+    a = None
+    if var:
+        X, Y = np.meshgrid(np.linspace(0, 1, g.shape_padded[0]),
+                           np.linspace(0, 1, g.shape_padded[1]),
+                           indexing="ij")
+        a = 1.0 + 0.5 * np.sin(2 * np.pi * X) * np.cos(np.pi * Y)
+        a = jnp.asarray(np.where(X > 0.5, 10.0 * a, a))
+    st = st_mod.make_stencil(g, a=a, dtype=jnp.float64)
+    unknown = np.asarray(bc_mod.unknown_mask(g.nx, g.ny, g.shape_padded,
+                                             bc_mod.dirichlet()))
+    rng = np.random.default_rng(seed)
+    f = rng.standard_normal(g.shape_padded) * unknown
+    u0 = rng.standard_normal(g.shape_padded) * unknown
+    return g, st, unknown, f, u0
+
+
+def _smooth_loop(st, u, f, unknown, method, sweeps, omega):
+    """Point Jacobi / red-black GS with per-point coefficients."""
+    shape = u.shape
+    coef = {k: np.broadcast_to(np.asarray(getattr(st, k)), shape)
+            for k in ("c", "w", "e", "s", "n")}
+    pts = np.argwhere(unknown)
+    u = u.copy()
+
+    def gs(v, i, j):
+        nb = (coef["w"][i, j] * v[i - 1, j] + coef["e"][i, j] * v[i + 1, j]
+              + coef["s"][i, j] * v[i, j - 1] + coef["n"][i, j] * v[i, j + 1])
+        return (f[i, j] + nb) / coef["c"][i, j]
+
+    for _ in range(sweeps):
+        if method == "jacobi":
+            old = u.copy()
+            for i, j in pts:
+                u[i, j] = old[i, j] + omega * (gs(old, i, j) - old[i, j])
+            continue
+        for colour in ((1, 0) if method == "rbgs_rev" else (0, 1)):
+            for i, j in pts:
+                if (i + j) % 2 == colour:
+                    u[i, j] += omega * (gs(u, i, j) - u[i, j])
+    return u
+
+
+@pytest.mark.parametrize("method", ["jacobi", "rbgs", "sor", "rbgs_rev"])
+@pytest.mark.parametrize("var", [False, True], ids=["scalar", "var"])
+@pytest.mark.parametrize("sweeps", [1, 3])
+def test_point_smoothers_match_loop_reference(method, var, sweeps):
+    g, st, unknown, f, u0 = _fields(17, 11, var)
+    omega = OMEGA[method]
+    got = np.asarray(sm.smooth(st, jnp.asarray(u0), jnp.asarray(f),
+                               jnp.asarray(unknown), method=method,
+                               sweeps=sweeps, omega=omega))
+    ref = _smooth_loop(st, u0, f, unknown, method, sweeps, omega)
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
+
+
+def test_point_smoothers_keep_fixed_and_padding_nodes():
+    g, st, unknown, f, u0 = _fields(33, 13, True)
+    for method in OMEGA:
+        got = np.asarray(sm.smooth(st, jnp.asarray(u0), jnp.asarray(f),
+                                   jnp.asarray(unknown), method=method,
+                                   sweeps=2, omega=OMEGA[method]))
+        assert np.all(got[~unknown] == 0)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_tridiagonal_solve_bf16(axis):
+    """Neither cuSPARSE nor LAPACK takes bf16: the solve runs in fp32 and
+    returns bf16, within bf16 rounding of the fp64 solution."""
+    from mixed_precision_multigrid_solvers_for_pdes_tpu.ops.tridiag import (
+        tridiagonal_solve,
+    )
+
+    rng = np.random.default_rng(axis)
+    shape = (24, 16)
+    dl = -rng.random(shape)
+    du = -rng.random(shape)
+    d = 2.5 + rng.random(shape)
+    b = rng.standard_normal(shape)
+    x64 = np.asarray(tridiagonal_solve(*(jnp.asarray(a)
+                                         for a in (dl, d, du, b)), axis=axis))
+    x16 = tridiagonal_solve(*(jnp.asarray(a, jnp.bfloat16)
+                              for a in (dl, d, du, b)), axis=axis)
+    assert x16.dtype == jnp.bfloat16 and x16.shape == shape
+    err = np.abs(np.asarray(x16.astype(jnp.float32), np.float64) - x64)
+    assert err.max() <= 0.05 * np.abs(x64).max()
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_tridiagonal_solve_matches_dense(dtype, axis):
+    """lax.linalg.tridiagonal_solve through the axis move, against dense
+    numpy solves of each line (dl[0] and du[n-1] ignored)."""
+    from mixed_precision_multigrid_solvers_for_pdes_tpu.ops.tridiag import (
+        tridiagonal_solve,
+    )
+
+    rng = np.random.default_rng(3 + axis)
+    shape = (12, 9)
+    dl, du = rng.standard_normal(shape), rng.standard_normal(shape)
+    d = 4.0 + np.abs(dl) + np.abs(du)
+    b = rng.standard_normal(shape)
+    x = np.asarray(tridiagonal_solve(*(jnp.asarray(a, dtype)
+                                       for a in (dl, d, du, b)), axis=axis))
+    mv = lambda a: np.moveaxis(a, axis, -1)  # noqa: E731
+    for k in range(mv(b).shape[0]):
+        n = mv(b).shape[-1]
+        A = (np.diag(mv(d)[k]) + np.diag(mv(dl)[k][1:], -1)
+             + np.diag(mv(du)[k][:-1], 1))
+        ref = np.linalg.solve(A, mv(b)[k])
+        tol = 1e-5 if dtype == jnp.float32 else 1e-12
+        np.testing.assert_allclose(mv(x)[k], ref, rtol=tol, atol=tol)
+        assert ref.shape == (n,)
+
+
+@pytest.mark.parametrize("smoother", ["adi", "line_x"])
+def test_line_smoothers_in_mixed_precision_cycles(smoother):
+    """Line smoothers on bf16 coarse levels (mixed policy) solve their
+    tridiagonal systems in fp32 — LAPACK and cuSPARSE both refuse bf16."""
+    import mixed_precision_multigrid_solvers_for_pdes_tpu as mg
+    from mixed_precision_multigrid_solvers_for_pdes_tpu.core.precision import (
+        policy,
+    )
+    from mixed_precision_multigrid_solvers_for_pdes_tpu.models import (
+        problems as P,
+    )
+    from mixed_precision_multigrid_solvers_for_pdes_tpu.solvers import (
+        ir_solve,
+    )
+    from mixed_precision_multigrid_solvers_for_pdes_tpu.solvers.multigrid import (
+        MultigridConfig,
+    )
+
+    prob = P.poisson_mms_anisotropic(65)
+    cfg = MultigridConfig(smoother=smoother, omega=1.0, tol=1e-9)
+    levels = mg.build_hierarchy(prob.grid, prob.spec, a=prob.a, lam=prob.lam,
+                                policy=policy("mixed"), cfg=cfg)
+    assert any(lev.dtype == jnp.bfloat16 for lev in levels)
+    u, info = ir_solve(levels, prob.rhs(jnp.float64),
+                       prob.initial_guess(jnp.float64), cfg, inner_cycles=2)
+    assert info["converged"]
+    assert prob.error_norms(u)["l2"] < 1e-3

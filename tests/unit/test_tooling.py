@@ -224,19 +224,15 @@ class TestMMSValidator:
 
 
 class TestHeadlineBench:
-    def test_bench_batch_protocol(self, capsys, monkeypatch):
-        """bench.py's batched sustained-throughput path runs end to end and
-        prints the one-JSON-line contract (the round driver executes it
-        unattended; a silent regression here loses the headline number)."""
+    def test_bench_batch_protocol(self):
+        """bench.py's batched sustained-throughput protocol runs end to end
+        (K solves in one scan, convergence checked per batch). Printing the
+        JSON line needs a GPU; test_entry_points covers the refusal."""
         import runpy
-        import sys
         from pathlib import Path
 
         root = Path(__file__).resolve().parents[2]
-        monkeypatch.setattr(sys, "argv", ["bench.py", "65", "2"])
-        monkeypatch.syspath_prepend(str(root))
-        runpy.run_path(str(root / "bench.py"), run_name="__main__")
-        line = capsys.readouterr().out.strip().splitlines()[-1]
-        out = json.loads(line)
-        assert set(out) == {"metric", "value", "unit", "vs_baseline"}
-        assert out["value"] > 0 and out["unit"] == "DoF/s"
+        bench = runpy.run_path(str(root / "bench.py"))
+        out = bench["measure"](65, 2)
+        assert set(out) == {"seconds_per_solve", "first_call_s", "dofs"}
+        assert out["seconds_per_solve"] > 0 and out["dofs"] == 63 ** 2

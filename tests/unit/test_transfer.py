@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from mixed_precision_multigrid_solvers_for_pdes_tpu.core.grid import Grid
 from mixed_precision_multigrid_solvers_for_pdes_tpu.ops import transfer
@@ -105,38 +106,106 @@ def test_padding_stays_zero():
     assert np.all(ef[gf.nx :, :] == 0) and np.all(ef[:, gf.ny :] == 0)
 
 
-def test_mxu_restrict_matches_parity_path():
-    """The TPU fast path (sublane reshape + MXU selection matmul) must agree
-    with the parity-plane ground truth to fp32 rounding. Runs the private
-    functions directly so the CPU suite covers the TPU-only dispatch branch."""
-    gf, gc = _grids(129)
-    pxf, pyf = gf.shape_padded
-    rng = np.random.default_rng(7)
-    rf = np.zeros((pxf, pyf), np.float32)
-    rf[: gf.nx, : gf.ny] = rng.standard_normal((gf.nx, gf.ny))
-    rf = jnp.asarray(rf)
-    for full in (True, False):
-        a = np.asarray(transfer._restrict_interior_fine(
-            rf, jnp.float32, full=full))
-        b = np.asarray(transfer._restrict_interior_parity(
-            rf, gc.nx, gc.ny, jnp.float32, full=full))
-        sl = np.s_[1 : gc.nx - 1, 1 : gc.ny - 1]
-        assert np.max(np.abs(a[sl] - b[sl])) < 1e-6
+# ---------------------------------------------------------------------------
+# against plain loop references (independent of the parity-plane and
+# repeat/select formulations)
+# ---------------------------------------------------------------------------
+
+def _restrict_loop(rf, ncx, ncy, pshape, method, boundary):
+    nfx, nfy = 2 * (ncx - 1) + 1, 2 * (ncy - 1) + 1
+    tri = {-1: 1.0, 0: 2.0, 1: 1.0}
+
+    def fine(i, j):
+        if boundary == "reflect":
+            i = 1 if i == -1 else (nfx - 2 if i == nfx else i)
+            j = 1 if j == -1 else (nfy - 2 if j == nfy else j)
+        return rf[i, j]
+
+    out = np.zeros(pshape)
+    for ci in range(ncx):
+        for cj in range(ncy):
+            i, j = 2 * ci, 2 * cj
+            ring = ci in (0, ncx - 1) or cj in (0, ncy - 1)
+            if ring and boundary == "zero":
+                continue
+            if (ring and boundary == "inject") or method == "injection":
+                out[ci, cj] = fine(i, j)
+            elif method == "full_weighting":
+                out[ci, cj] = sum(tri[a] * tri[b] * fine(i + a, j + b)
+                                  for a in (-1, 0, 1)
+                                  for b in (-1, 0, 1)) / 16.0
+            else:
+                out[ci, cj] = (4.0 * fine(i, j) + fine(i - 1, j)
+                               + fine(i + 1, j) + fine(i, j - 1)
+                               + fine(i, j + 1)) / 8.0
+    return out
 
 
-def test_mxu_prolong_matches_repeat_path():
-    gf, gc = _grids(129)
-    pxf, pyf = gf.shape_padded
-    pxc, pyc = gc.shape_padded
-    rng = np.random.default_rng(8)
-    ec = np.zeros((pxc, pyc), np.float32)
-    ec[: gc.nx, : gc.ny] = rng.standard_normal((gc.nx, gc.ny))
-    ec = jnp.asarray(ec)
-    pm = np.asarray(transfer._prolong_matmul(
-        ec, gc.nx, gc.ny, gf.nx, gf.ny, (pxf, pyf), jnp.float32))
-    pr = np.asarray(transfer.prolong(
-        ec, gc.nx, gc.ny, gf.nx, gf.ny, (pxf, pyf)))
-    assert np.max(np.abs(pm - pr)) < 1e-6
-    # padding must stay clean without a post-masking pass
-    assert np.max(np.abs(pm[gf.nx:, :])) == 0.0
-    assert np.max(np.abs(pm[:, gf.ny:])) == 0.0
+def _prolong_loop(ec, nfx, nfy, pshape, method):
+    out = np.zeros(pshape)
+    for i in range(nfx):
+        for j in range(nfy):
+            ci, cj, a, b = i // 2, j // 2, i % 2, j % 2
+            if method == "injection":
+                out[i, j] = ec[ci, cj] if a == b == 0 else 0.0
+            else:
+                out[i, j] = np.mean([ec[ci + da, cj + db]
+                                     for da in range(a + 1)
+                                     for db in range(b + 1)])
+    return out
+
+
+def _random_logical(g, seed):
+    rng = np.random.default_rng(seed)
+    return g.pad_field(rng.standard_normal((g.nx, g.ny)))
+
+
+@pytest.mark.parametrize("n,method,boundary", [
+    (17, m, b) for m in ("full_weighting", "half_weighting", "injection")
+    for b in ("zero", "inject", "reflect")
+] + [(65, "full_weighting", "reflect")])
+def test_restrict_matches_loop_reference(n, method, boundary):
+    gf, gc = _grids(n)
+    rf = _random_logical(gf, n)
+    got = np.asarray(transfer.restrict(
+        jnp.asarray(rf), gc.nx, gc.ny, gc.shape_padded, method=method,
+        boundary=boundary))
+    ref = _restrict_loop(rf, gc.nx, gc.ny, gc.shape_padded, method, boundary)
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("n,method", [(17, "bilinear"), (33, "bilinear"),
+                                      (65, "bilinear"), (17, "injection")])
+def test_prolong_matches_loop_reference(n, method):
+    gf, gc = _grids(n)
+    ec = _random_logical(gc, n + 1)
+    got = np.asarray(transfer.prolong(
+        jnp.asarray(ec), gc.nx, gc.ny, gf.nx, gf.ny, gf.shape_padded,
+        method=method))
+    ref = _prolong_loop(ec, gf.nx, gf.ny, gf.shape_padded, method)
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
+
+
+def test_bilinear_interleave_matches_loop_reference():
+    """The shared interleave (ops/transfer.py, parallel/halo_solve.py) on a
+    window with its east/north ring: fine (2m, 2k) values."""
+    rng = np.random.default_rng(5)
+    ext = rng.standard_normal((9, 6))
+    got = np.asarray(transfer.bilinear_interleave(
+        ext[:-1, :-1], ext[:-1, 1:], ext[1:, :-1], ext[1:, 1:], jnp.float64))
+    ref = _prolong_loop(ext, 16, 10, (16, 10), "bilinear")
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("method", ["full_weighting", "injection"])
+def test_restrict_bf16_output(method):
+    """dtype= casts the result: bf16 values within bf16 rounding of the
+    fp64 loop reference."""
+    gf, gc = _grids(33)
+    rf = _random_logical(gf, 7)
+    got = transfer.restrict(jnp.asarray(rf), gc.nx, gc.ny, gc.shape_padded,
+                            method=method, dtype=jnp.bfloat16)
+    assert got.dtype == jnp.bfloat16
+    ref = _restrict_loop(rf, gc.nx, gc.ny, gc.shape_padded, method, "zero")
+    np.testing.assert_allclose(np.asarray(got.astype(jnp.float32)), ref,
+                               rtol=1e-2, atol=1e-2)
